@@ -20,7 +20,7 @@ jax.config.update("jax_platforms", "cpu")
 # go through the production wrapper (regression: it used to touch
 # jax.process_count() first, initializing the backend and making
 # distributed init raise on every real multi-host launch)
-from vs_seg_tpu.parallel.distributed import initialize  # noqa: E402
+from vs_seg.parallel.distributed import initialize  # noqa: E402
 
 initialize(coordinator_address=f"127.0.0.1:{port}",
            num_processes=nproc, process_id=pid)
@@ -30,12 +30,12 @@ import numpy as np  # noqa: E402
 import jax.random as jrandom  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from vs_seg_tpu.core.config import Config  # noqa: E402
-from vs_seg_tpu.models import build_model  # noqa: E402
-from vs_seg_tpu.parallel.distributed import (  # noqa: E402
+from vs_seg.core.config import Config  # noqa: E402
+from vs_seg.models import build_model  # noqa: E402
+from vs_seg.parallel.distributed import (  # noqa: E402
     make_global_batch, make_global_mesh, shard_files_for_process,
 )
-from vs_seg_tpu.train.trainer import Trainer  # noqa: E402
+from vs_seg.train.trainer import Trainer  # noqa: E402
 
 assert jax.process_count() == nproc
 assert len(jax.devices()) == 4 * nproc, jax.devices()
@@ -73,7 +73,7 @@ label_g = (rng.random((n, 8, 32, 32, 1)) > 0.8).astype(np.float32)
 local = slice(pid * 4, (pid + 1) * 4)
 image, label = make_global_batch(mesh, (image_g[local], label_g[local]))
 
-from vs_seg_tpu.parallel.distributed import replicate_tree  # noqa: E402
+from vs_seg.parallel.distributed import replicate_tree  # noqa: E402
 
 params = replicate_tree(mesh, state["params"])
 batch_stats = replicate_tree(mesh, state["batch_stats"])

@@ -123,7 +123,7 @@ def alias(*names):
     return lambda cls: cls
 
 
-def install_shim(reference_root: str = "/root/reference") -> None:
+def install_shim(reference_root: str) -> None:
     """Register the fake `monai` package tree and put the reference repo on
     sys.path so `params.networks...` / `params.losses...` import from it."""
     if reference_root not in sys.path:

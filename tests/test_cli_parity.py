@@ -12,7 +12,7 @@ params/VSparams.py:343-374) at the debug ROI (128, 128, 32) over synthetic
 Oracle independence: window starts (MONAI 0.4 `dense_patch_slices` +
 `_get_scan_interval`) and the Gaussian importance map
 (`compute_importance_map` / `gaussian_1d`, truncated=4.0) are re-derived
-here in numpy, NOT imported from vs_seg_tpu.
+here in numpy, NOT imported from vs_seg.
 """
 
 import itertools
@@ -23,18 +23,15 @@ import numpy as np
 import pytest
 import torch
 
-REFERENCE = "/root/reference"
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(os.path.join(REFERENCE, "params")),
-    reason="reference source tree not available")
+RefUNet2d5_spvPA = None
 
-from tests.monai_shim import install_shim  # noqa: E402
 
-install_shim(REFERENCE)
-
-from params.networks.nets.unet2d5_spvPA import (  # noqa: E402
-    UNet2d5_spvPA as RefUNet2d5_spvPA,
-)
+@pytest.fixture(autouse=True, scope="module")
+def _reference_classes(reference_src):
+    global RefUNet2d5_spvPA
+    from params.networks.nets.unet2d5_spvPA import (
+        UNet2d5_spvPA as RefUNet2d5_spvPA,
+    )
 
 FLAGSHIP = dict(
     channels=(16, 32, 48, 64, 80, 96),
@@ -161,7 +158,7 @@ def ref_flagship(leg):
 
 @pytest.fixture(scope="module")
 def dataset_root(tmp_path_factory, ref_flagship):
-    from vs_seg_tpu.data.synthetic import generate_dataset
+    from vs_seg.data.synthetic import generate_dataset
     root = str(tmp_path_factory.mktemp("clipar"))
     generate_dataset(root, n_train=2, n_val=2, n_test=2, shape=VOLUME, seed=5)
     model_dir = os.path.join(root, "results", "debug", "model")
@@ -175,7 +172,7 @@ def dataset_root(tmp_path_factory, ref_flagship):
 def cli_run(dataset_root, leg):
     import importlib.util
     cli_path = os.path.join(os.path.dirname(__file__), "..", "VS_inference.py")
-    spec = importlib.util.spec_from_file_location("vs_seg_tpu_cli_inference",
+    spec = importlib.util.spec_from_file_location("vs_seg_cli_inference",
                                                   os.path.abspath(cli_path))
     VS_inference = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(VS_inference)
@@ -191,9 +188,9 @@ def cli_run(dataset_root, leg):
 
 def _preprocessed_test_cases(root, dataset="T1"):
     """The CLI's own test pipeline (load -> channel -> RAS -> normalize)."""
-    from vs_seg_tpu.core.config import Config
-    from vs_seg_tpu.data.dataset import load_split_csv
-    from vs_seg_tpu.data.transforms import get_transforms
+    from vs_seg.core.config import Config
+    from vs_seg.data.dataset import load_split_csv
+    from vs_seg.data.transforms import get_transforms
     cfg = Config(debug=True, data_root=root, dataset=dataset)
     _, _, test_files = load_split_csv(cfg.split_csv, cfg.dataset, root)
     _, _, test_t = get_transforms(cfg.pad_crop_shape_test)
@@ -206,7 +203,7 @@ def test_cli_inference_matches_reference_sliding_window(cli_run, ref_flagship,
     torch oracle's argmax; blended logits from our engine-level sliding
     window must match the oracle within float32 tolerance.  Runs once per
     CLI leg (attention on/T1 and --no_attention/T2)."""
-    from vs_seg_tpu.data import nifti
+    from vs_seg.data import nifti
 
     root = cli_run
     cases = _preprocessed_test_cases(root, leg["dataset"])
@@ -243,7 +240,7 @@ def test_full_size_pth_strict_roundtrip(ref_flagship, leg, tmp_path):
     tensor consumed, every expected tensor present. This test passes
     unchanged on the real Zenodo checkpoints (README.md:161-170): point it at
     one via `VS_ZENODO_PTH=/path/to/best_metric_model.pth`."""
-    from vs_seg_tpu.compat.torch_import import import_unet2d5_spvpa, load_pth
+    from vs_seg.compat.torch_import import import_unet2d5_spvpa, load_pth
 
     pth = os.environ.get("VS_ZENODO_PTH")
     if pth is None:
@@ -277,14 +274,14 @@ def test_full_size_pth_strict_roundtrip(ref_flagship, leg, tmp_path):
 
 
 def test_engine_blended_logits_match_oracle(dataset_root, ref_flagship, leg):
-    """Direct logit-level bound: our fused window loop + Pallas/XLA blending
+    """Direct logit-level bound: our fused window loop + XLA blending
     vs the oracle accumulation, same weights, float32."""
     import jax.numpy as jnp
 
-    from vs_seg_tpu.compat.torch_import import import_unet2d5_spvpa
-    from vs_seg_tpu.infer.engine import make_predictor
-    from vs_seg_tpu.infer.sliding_window import sliding_window_inference
-    from vs_seg_tpu.models import UNet2d5_spvPA
+    from vs_seg.compat.torch_import import import_unet2d5_spvpa
+    from vs_seg.infer.engine import make_predictor
+    from vs_seg.infer.sliding_window import sliding_window_inference
+    from vs_seg.models import UNet2d5_spvPA
 
     sample = _preprocessed_test_cases(dataset_root, leg["dataset"])[0]
     image = np.asarray(sample["image"])[0].astype(np.float32)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from vs_seg_tpu.core.config import Config, add_reference_cli_flags, config_from_args
+from vs_seg.core.config import Config, add_reference_cli_flags, config_from_args
 
 
 def _parse(argv):

@@ -3,7 +3,7 @@
 import jax
 import numpy as np
 
-from vs_seg_tpu.data.device_pipeline import DeviceCachedDataset, DeviceLoader
+from vs_seg.data.device_pipeline import DeviceCachedDataset, DeviceLoader
 
 
 def _samples(rng, n=3, shape=(20, 18, 10)):
@@ -63,9 +63,9 @@ def test_device_loader_epochs_differ(rng):
 
 def test_device_pipeline_trains(rng):
     """One epoch of Trainer.fit through the device pipeline."""
-    from vs_seg_tpu.core.config import Config
-    from vs_seg_tpu.models import build_model
-    from vs_seg_tpu.train import Trainer
+    from vs_seg.core.config import Config
+    from vs_seg.models import build_model
+    from vs_seg.train import Trainer
     import tempfile
 
     samples = _samples(rng, n=2, shape=(16, 16, 8))

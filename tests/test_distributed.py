@@ -43,11 +43,11 @@ def test_two_process_dp_train_step_matches_single_process():
     # single-process reference on the 8-virtual-device mesh (conftest env)
     import jax
     import jax.random as jrandom
-    from vs_seg_tpu.core.config import Config
-    from vs_seg_tpu.models import build_model
-    from vs_seg_tpu.parallel.distributed import make_global_batch
-    from vs_seg_tpu.parallel.mesh import make_mesh
-    from vs_seg_tpu.train.trainer import Trainer
+    from vs_seg.core.config import Config
+    from vs_seg.models import build_model
+    from vs_seg.parallel.distributed import make_global_batch
+    from vs_seg.parallel.mesh import make_mesh
+    from vs_seg.train.trainer import Trainer
 
     cfg = Config(pad_crop_shape=(32, 32, 8), compute_dtype="float32",
                  train_batch_size=8,
@@ -72,7 +72,7 @@ def test_two_process_dp_train_step_matches_single_process():
 def test_shard_files_equal_counts_and_coverage():
     """Every host must get the SAME case count (unequal counts deadlock the
     gradient psum); the tail wraps around, and all files stay covered."""
-    from vs_seg_tpu.parallel.distributed import shard_files_for_process
+    from vs_seg.parallel.distributed import shard_files_for_process
     for n_files, n_hosts in [(10, 3), (8, 4), (7, 2), (3, 8)]:
         files = list(range(n_files))
         shards = [shard_files_for_process(files, pid, n_hosts)

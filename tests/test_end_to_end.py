@@ -7,13 +7,13 @@ import os
 import numpy as np
 import pytest
 
-from vs_seg_tpu.core.config import Config
-from vs_seg_tpu.data import nifti
-from vs_seg_tpu.data.dataset import CacheDataset, DataLoader, load_split_csv
-from vs_seg_tpu.data.transforms import get_transforms
-from vs_seg_tpu.infer import run_inference
-from vs_seg_tpu.models import build_model
-from vs_seg_tpu.train import Trainer
+from vs_seg.core.config import Config
+from vs_seg.data import nifti
+from vs_seg.data.dataset import CacheDataset, DataLoader, load_split_csv
+from vs_seg.data.transforms import get_transforms
+from vs_seg.infer import run_inference
+from vs_seg.models import build_model
+from vs_seg.train import Trainer
 
 
 def tiny_config(root, tmp) -> Config:
@@ -41,7 +41,7 @@ def tiny_config(root, tmp) -> Config:
 
 @pytest.fixture(scope="module")
 def e2e(tmp_path_factory):
-    from vs_seg_tpu.data.synthetic import generate_dataset
+    from vs_seg.data.synthetic import generate_dataset
     root = tmp_path_factory.mktemp("e2e_data")
     generate_dataset(str(root), n_train=2, n_val=1, n_test=2, shape=(48, 48, 16))
     cfg = tiny_config(str(root), tmp_path_factory.mktemp("e2e_out"))
@@ -119,10 +119,10 @@ def test_resume_continues_training(e2e):
     restored = trainer.restore_state(
         os.path.join(cfg.model_path, "last_epoch_model.ckpt"))
     cfg3 = dataclasses.replace(cfg, num_epochs=cfg.num_epochs + 1)
-    from vs_seg_tpu.train import Trainer
+    from vs_seg.train import Trainer
     trainer3 = Trainer(cfg3, model)
-    from vs_seg_tpu.data.dataset import CacheDataset, DataLoader, load_split_csv
-    from vs_seg_tpu.data.transforms import get_transforms
+    from vs_seg.data.dataset import CacheDataset, DataLoader, load_split_csv
+    from vs_seg.data.transforms import get_transforms
     train_files, val_files, _ = load_split_csv(cfg.split_csv, cfg.dataset,
                                                cfg.data_root)
     train_t, val_t, _ = get_transforms(cfg.pad_crop_shape)
@@ -152,7 +152,7 @@ def test_legacy_threefry_checkpoint_rng_restores():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from vs_seg_tpu.train.trainer import wrap_rng_data
+    from vs_seg.train.trainer import wrap_rng_data
     legacy = jax.random.key_data(jax.random.key(7))         # (2,) threefry
     modern = jax.random.key_data(jax.random.key(7, impl="rbg"))  # (4,) rbg
     for data in (legacy, modern, np.asarray(legacy)):
@@ -163,54 +163,3 @@ def test_legacy_threefry_checkpoint_rng_restores():
         assert bits.shape == (4,)
         assert not jnp.array_equal(jax.random.key_data(a),
                                    jax.random.key_data(b))
-
-
-def test_legacy_unflattened_opt_state_restores(e2e, tmp_path):
-    """Checkpoints saved before optax.flatten stored per-param Adam moment
-    trees; restore_state must convert them to the flattened layout with
-    numerically identical moments (ADVICE r2)."""
-    import jax
-    import jax.numpy as jnp
-    import optax
-    from flax import serialization
-    from jax.flatten_util import ravel_pytree
-    from vs_seg_tpu.train.checkpoint import save_checkpoint
-
-    cfg, model, trainer, state, *_ = e2e
-    params = state["params"]
-    # simulate a legacy checkpoint: unflattened optimizer, nontrivial moments
-    legacy_opt = optax.inject_hyperparams(
-        lambda learning_rate: optax.chain(
-            optax.add_decayed_weights(cfg.weight_decay),
-            optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-8),
-            optax.scale(-1.0), optax.scale(learning_rate),
-        ))(learning_rate=cfg.initial_learning_rate)
-    legacy_state = legacy_opt.init(params)
-    grads = jax.tree_util.tree_map(lambda p: jnp.ones_like(p) * 0.01, params)
-    _, legacy_state = legacy_opt.update(grads, legacy_state, params)
-    path = os.path.join(tmp_path, "legacy.ckpt")
-    save_checkpoint(path, {
-        "params": params, "batch_stats": state["batch_stats"],
-        "opt_state": serialization.to_state_dict(legacy_state),
-        "rng": state["rng"], "epoch": 1, "best_metric": 0.5,
-        "best_metric_epoch": 1})
-
-    restored = trainer.restore_state(path)
-    adam = restored["opt_state"].inner_state[1]
-    assert adam.mu.ndim == 1  # flattened layout
-    np.testing.assert_allclose(
-        np.asarray(adam.mu),
-        np.asarray(ravel_pytree(legacy_state.inner_state[1].mu)[0]), rtol=1e-6)
-    np.testing.assert_allclose(
-        np.asarray(adam.nu),
-        np.asarray(ravel_pytree(legacy_state.inner_state[1].nu)[0]), rtol=1e-6)
-    assert int(np.asarray(adam.count)) == 1
-    # and the converted state actually drives a train step
-    from vs_seg_tpu.train.trainer import wrap_rng_data
-    image = np.zeros((1, 16, 32, 32, 1), np.float32)
-    label = np.zeros((1, 16, 32, 32, 1), np.float32)
-    p, bs, o, k, loss = trainer.train_step(
-        jax.tree_util.tree_map(np.asarray, restored["params"]),
-        restored["batch_stats"], restored["opt_state"],
-        wrap_rng_data(restored["rng"]), image, label)
-    assert np.isfinite(float(loss))

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vs_seg_tpu.ops.experimental.grouped_conv import build_block_toeplitz, grouped_conv2d
+from vs_seg.ops.experimental.grouped_conv import build_block_toeplitz, grouped_conv2d
 
 
 @pytest.mark.parametrize("c,co,g", [(16, 16, 8), (4, 8, 4), (32, 32, 4)])

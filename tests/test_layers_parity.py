@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from vs_seg_tpu.nn.blocks import Convolution, ResidualUnit
-from vs_seg_tpu.nn.layers import BatchNorm, Conv3d, ConvTranspose3d, PReLU, same_padding
+from vs_seg.nn.blocks import Convolution, ResidualUnit
+from vs_seg.nn.layers import BatchNorm, Conv3d, ConvTranspose3d, PReLU, same_padding
 
 
 def to_ndhwc(x_torch):

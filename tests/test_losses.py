@@ -7,8 +7,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from vs_seg_tpu.eval.metrics import dice_score
-from vs_seg_tpu.losses import (
+from vs_seg.eval.metrics import dice_score
+from vs_seg.losses import (
     dice_loss, dice_spvpa_loss, generalized_dice_loss,
     generalized_wasserstein_dice_loss, masked_dice_loss,
 )
@@ -175,7 +175,7 @@ def test_dice_score_metric(rng):
 
 
 def test_segmentation_volume_ml():
-    from vs_seg_tpu.eval.metrics import segmentation_volume_ml
+    from vs_seg.eval.metrics import segmentation_volume_ml
     lbl = np.zeros((10, 10, 10))
     lbl[:5, :5, :2] = 1  # 50 voxels
     aff = np.diag([0.5, 0.5, 2.0, 1.0])  # 0.5mm^3 per voxel

@@ -4,8 +4,8 @@ import numpy as np
 import torch
 
 from tests.torch_replica import TorchUNet2d5_spvPA
-from vs_seg_tpu.compat.torch_import import import_unet2d5_spvpa
-from vs_seg_tpu.models import UNet2d5_spvPA
+from vs_seg.compat.torch_import import import_unet2d5_spvpa
+from vs_seg.models import UNet2d5_spvPA
 
 SMALL = dict(
     channels=(4, 8, 12, 16),
@@ -63,7 +63,7 @@ def test_model_matches_torch_replica_eval():
 
 
 def test_converted_tree_structure_matches_init():
-    """Converter output must exactly match the flax init tree (no orphans)."""
+    """Converter output must exactly match the model init tree (no orphans)."""
     torch.manual_seed(1)
     tmodel = TorchUNet2d5_spvPA(1, 2, SMALL["channels"], SMALL["strides"],
                                 SMALL["kernel_sizes"], SMALL["sample_kernel_sizes"])
@@ -94,7 +94,7 @@ def test_no_attention_variant():
 
 def test_converter_full_default_architecture(tmp_path):
     """Full 6-level default config (reference params/VSparams.py:343-374):
-    converter tree must exactly match flax init, and the .pth file path in
+    converter tree must exactly match the model init, and the .pth file path in
     VS_inference.load_model_state must work."""
     torch.manual_seed(3)
     full = dict(
@@ -109,10 +109,10 @@ def test_converter_full_default_architecture(tmp_path):
     pth = str(tmp_path / "best_metric_model.pth")
     torch.save(tmodel.state_dict(), pth)
 
-    from vs_seg_tpu.compat.torch_import import import_unet2d5_spvpa, load_pth
+    from vs_seg.compat.torch_import import import_unet2d5_spvpa, load_pth
     params, stats = import_unet2d5_spvpa(load_pth(pth))
 
-    from vs_seg_tpu.train.trainer import init_model
+    from vs_seg.train.trainer import init_model
     model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=0.1,
                           attention_module=True, dtype=jnp.float32, **full)
     variables = init_model(model, 0)
@@ -147,20 +147,20 @@ def test_convert_checkpoint_cli(tmp_path):
     pth = str(tmp_path / "m.pth")
     torch.save(tmodel.state_dict(), pth)
     dst = str(tmp_path / "m.ckpt")
-    from vs_seg_tpu.compat.convert_checkpoint import main as convert_main
+    from vs_seg.compat.convert_checkpoint import main as convert_main
     convert_main([pth, dst])
-    from vs_seg_tpu.train.checkpoint import load_checkpoint
+    from vs_seg.train.checkpoint import load_checkpoint
     state = load_checkpoint(dst)
     assert "params" in state and "batch_stats" in state
 
 
 def test_build_model_factory_variants():
     """All three shipped model classes are reachable from config."""
-    from vs_seg_tpu.core.config import Config
-    from vs_seg_tpu.models import build_model
-    from vs_seg_tpu.models.unet import UNet
-    from vs_seg_tpu.models.unet2d5 import UNet2d5
-    from vs_seg_tpu.models.unet2d5_spvpa import UNet2d5_spvPA
+    from vs_seg.core.config import Config
+    from vs_seg.models import build_model
+    from vs_seg.models.unet import UNet
+    from vs_seg.models.unet2d5 import UNet2d5
+    from vs_seg.models.unet2d5_spvpa import UNet2d5_spvPA
     import pytest
     base = dict(channels=(4, 8, 12), strides=((2, 2, 1), (2, 2, 2)),
                 kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
@@ -176,9 +176,9 @@ def test_alt_models_train_one_step(rng):
     """UNet2d5 and UNet (non-tuple outputs) run a full train step."""
     import jax.numpy as jnp
     import jax.random as jrandom
-    from vs_seg_tpu.core.config import Config
-    from vs_seg_tpu.models import build_model
-    from vs_seg_tpu.train.trainer import Trainer, wrap_rng_data
+    from vs_seg.core.config import Config
+    from vs_seg.models import build_model
+    from vs_seg.train.trainer import Trainer, wrap_rng_data
     for name in ("UNet2d5", "UNet"):
         cfg = Config(model=name, compute_dtype="float32", attention=False,
                      channels=(4, 8, 12), strides=((2, 2, 1), (2, 2, 2)),
@@ -197,322 +197,6 @@ def test_alt_models_train_one_step(rng):
             state["params"], state["batch_stats"], state["opt_state"],
             wrap_rng_data(state["rng"]), image, label)
         assert jnp.isfinite(loss), (name, loss)
-
-
-def test_fused_attention_matches_reference():
-    """The fused Pallas attention tail (gate=True dispatch in
-    AttentionBlock1) must reproduce the unfused XLA path exactly at eval.
-    Shapes are chosen so upatt_0 (kd=1) and upatt_1 (kd=3) fuse while
-    bottom_att falls back (W*Cm % 128 != 0) — both paths in one forward."""
-    from vs_seg_tpu.ops.experimental import pallas_att
-
-    cfg = dict(channels=(8, 16), strides=((2, 2, 2),),
-               kernel_sizes=((3, 3, 1), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 3),))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=1, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(0).normal(size=(1, 8, 32, 32, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-
-    logits_ref, atts_ref = model.apply(variables, x, train=False)
-    assert not pallas_att.fusion_enabled()  # CPU: default path is unfused
-    pallas_att.FORCE_INTERPRET = True
-    try:
-        assert pallas_att.fusion_enabled()
-        logits, atts = model.apply(variables, x, train=False)
-    finally:
-        pallas_att.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=1e-5, rtol=1e-5)
-    for a, r in zip(atts, atts_ref):
-        assert a.shape == r.shape
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   atol=1e-5, rtol=1e-5)
-
-
-def test_fused_conv333_matches_reference():
-    """The fused Pallas conv+BN+PReLU path (conv333 dispatch in Convolution)
-    must reproduce the unfused XLA path at eval.  The level-2 (3,3,3) conv
-    sites of this config fuse (single input, decoder pair input, and the
-    attention conv1 with act=relu/norm=None); the (3,3,1) level-0 sites
-    fall back."""
-    from vs_seg_tpu.ops import pallas_conv333
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=1, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(1).normal(size=(1, 8, 32, 32, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    # non-trivial BN stats so the folded affine is exercised
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, atts_ref = model.apply(variables, x, train=False)
-    assert not pallas_conv333.fusion_enabled()  # CPU: default path unfused
-    pallas_conv333.FORCE_INTERPRET = True
-    try:
-        assert pallas_conv333.fusion_enabled()
-        logits, atts = model.apply(variables, x, train=False)
-    finally:
-        pallas_conv333.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    for a, r in zip(atts, atts_ref):
-        assert a.shape == r.shape
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   atol=2e-4, rtol=2e-4)
-
-
-def test_fused_l2block_matches_reference():
-    """The fused decoder-block mega-kernel dispatch (l2block in the model
-    decoder) must reproduce the unfused XLA path at eval.  The level-1
-    decoder block of this 3-level config fuses (16ch pair at 16x16); the
-    (3,3,1) level-0 block falls back."""
-    from vs_seg_tpu.ops import pallas_l2block
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=1, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(2).normal(size=(1, 8, 32, 32, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, atts_ref = model.apply(variables, x, train=False)
-    assert not pallas_l2block.fusion_enabled()
-    pallas_l2block.FORCE_INTERPRET = True
-    try:
-        assert pallas_l2block.fusion_enabled()
-        logits, atts = model.apply(variables, x, train=False)
-    finally:
-        pallas_l2block.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    for a, r in zip(atts, atts_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   atol=2e-4, rtol=2e-4)
-
-
-def test_fused_rublock_matches_reference():
-    """The fused encoder-block mega-kernel dispatch (rublock in
-    nn/blocks.py:ResidualUnit) must reproduce the unfused XLA path at
-    eval.  The level-1 encoder down block of this 3-level config fuses
-    (8->16ch at 16x16); the (3,3,1) level-0 block and the 8x8 bottom
-    fall back."""
-    from vs_seg_tpu.ops import pallas_rublock
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(3).normal(size=(1, 8, 32, 32, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, atts_ref = model.apply(variables, x, train=False)
-    assert not pallas_rublock.fusion_enabled()
-    pallas_rublock.FORCE_INTERPRET = True
-    try:
-        assert pallas_rublock.fusion_enabled()
-        logits, atts = model.apply(variables, x, train=False)
-    finally:
-        pallas_rublock.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    for a, r in zip(atts, atts_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   atol=2e-4, rtol=2e-4)
-
-
-def test_fused_blocks_compose():
-    """Both mega-kernels enabled at once (encoder rublock + decoder
-    l2block) must still reproduce the unfused forward."""
-    from vs_seg_tpu.ops import pallas_l2block, pallas_rublock
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(4).normal(size=(1, 8, 32, 32, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, _ = model.apply(variables, x, train=False)
-    pallas_l2block.FORCE_INTERPRET = True
-    pallas_rublock.FORCE_INTERPRET = True
-    try:
-        logits, _ = model.apply(variables, x, train=False)
-        # x-edge-cache + DMA-prefetch variants (VS_XCACHE/VS_DMAPRE) of
-        # both kernels
-        pallas_l2block.FORCE_XCACHE = True
-        logits_xc, _ = model.apply(variables, x, train=False)
-        pallas_l2block.FORCE_XCACHE = False
-        pallas_l2block.FORCE_DMAPRE = True
-        logits_dp, _ = model.apply(variables, x, train=False)
-    finally:
-        pallas_l2block.FORCE_INTERPRET = False
-        pallas_rublock.FORCE_INTERPRET = False
-        pallas_l2block.FORCE_XCACHE = False
-        pallas_l2block.FORCE_DMAPRE = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    np.testing.assert_allclose(np.asarray(logits_xc), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    np.testing.assert_allclose(np.asarray(logits_dp), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-
-
-def test_fused_block2d_matches_reference():
-    """The kd=1 fused block dispatches (ops/pallas_block2d.py) must
-    reproduce the unfused XLA path at eval: the (3,3,1) level-0 encoder
-    block (1->8ch, cp16) and the decoder logit head (8+8 halves -> 2)
-    both fuse at W=64; interior levels are (3,3,3) and stay unfused here."""
-    from vs_seg_tpu.ops.experimental import pallas_block2d
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(5).normal(size=(1, 4, 64, 64, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, atts_ref = model.apply(variables, x, train=False)
-    assert not pallas_block2d.ru_fusion_enabled()
-    pallas_block2d.FORCE_INTERPRET = True
-    try:
-        assert pallas_block2d.ru_fusion_enabled()
-        logits, atts = model.apply(variables, x, train=False)
-    finally:
-        pallas_block2d.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    for a, r in zip(atts, atts_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   atol=2e-4, rtol=2e-4)
-
-
-def test_fused_blocks_no_attention_model():
-    """All mega-kernel gates on with attention OFF: the decoder fusions
-    must stay out (they require the attention block) while the encoder
-    rublock/block2d paths still reproduce the unfused forward."""
-    from vs_seg_tpu.ops import pallas_l2block, pallas_rublock
-    from vs_seg_tpu.ops.experimental import pallas_block2d
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=False, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(6).normal(size=(1, 4, 64, 64, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, _ = model.apply(variables, x, train=False)
-    for m in (pallas_block2d, pallas_l2block, pallas_rublock):
-        m.FORCE_INTERPRET = True
-    try:
-        logits, _ = model.apply(variables, x, train=False)
-    finally:
-        for m in (pallas_block2d, pallas_l2block, pallas_rublock):
-            m.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-
-
-def test_fused_blocks_never_dispatch_in_training():
-    """Training mode must be bit-identical with all fusion gates forced:
-    the fused kernels are eval-only (folded BN) and the dispatch guards
-    must keep them out of the train path."""
-    from vs_seg_tpu.ops import pallas_l2block, pallas_rublock
-    from vs_seg_tpu.ops.experimental import pallas_block2d, pallas_dsconv
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(7).normal(size=(1, 4, 64, 64, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-
-    (ref, _), _ = model.apply(variables, x, train=True,
-                              mutable=["batch_stats"])
-    mods = (pallas_block2d, pallas_dsconv, pallas_l2block, pallas_rublock)
-    for m in mods:
-        m.FORCE_INTERPRET = True
-    try:
-        (out, _), _ = model.apply(variables, x, train=True,
-                                  mutable=["batch_stats"])
-    finally:
-        for m in mods:
-            m.FORCE_INTERPRET = False
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_fused_dsconv_matches_reference():
-    """The strided downsample kernel dispatch (nn/blocks.py:Convolution,
-    stride (2,2,2)) must reproduce the unfused XLA path at eval, composed
-    with the other default-on mega-kernels (its raison d'etre is sitting
-    BETWEEN two fused blocks).  The level-1 downsample of this config
-    fuses (16ch, 32x32 -> 16x16); level-0 is (2,2,1)-strided and falls
-    back."""
-    from vs_seg_tpu.ops import pallas_l2block, pallas_rublock
-    from vs_seg_tpu.ops.experimental import pallas_dsconv
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x = jnp.asarray(np.random.default_rng(8).normal(size=(1, 8, 32, 64, 1)),
-                    jnp.float32)
-    variables = model.init({"params": jax.random.key(0)}, x, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-
-    logits_ref, atts_ref = model.apply(variables, x, train=False)
-    assert not pallas_dsconv.fusion_enabled()
-    mods = (pallas_dsconv, pallas_l2block, pallas_rublock)
-    for m in mods:
-        m.FORCE_INTERPRET = True
-    try:
-        assert pallas_dsconv.fusion_enabled()
-        logits, atts = model.apply(variables, x, train=False)
-    finally:
-        for m in mods:
-            m.FORCE_INTERPRET = False
-
-    np.testing.assert_allclose(np.asarray(logits), np.asarray(logits_ref),
-                               atol=2e-4, rtol=2e-4)
-    for a, r in zip(atts, atts_ref):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(r),
-                                   atol=2e-4, rtol=2e-4)
 
 
 def test_resfold_matches_reference(monkeypatch):

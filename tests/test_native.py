@@ -1,8 +1,8 @@
 import numpy as np
 
-from vs_seg_tpu.data import nifti
-from vs_seg_tpu.native.decoder import (convert_to_float32, native_available,
-                                       read_file_bytes)
+from vs_seg.data import nifti
+from vs_seg.native.decoder import (convert_to_float32, native_available,
+                                   read_file_bytes)
 
 
 def test_native_compiles_and_reads_gz(tmp_path, rng):
@@ -42,7 +42,7 @@ def test_multi_member_gzip_decodes_fully(tmp_path):
     """bgzip-style concatenated gzip members must fully decode — stopping at
     the first member would silently truncate the volume payload."""
     import gzip
-    from vs_seg_tpu.native.decoder import read_file_bytes
+    from vs_seg.native.decoder import read_file_bytes
     a, b = b"x" * 70000, b"y" * 50000
     path = tmp_path / "multi.gz"
     path.write_bytes(gzip.compress(a) + gzip.compress(b))

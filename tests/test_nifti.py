@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from vs_seg_tpu.data import nifti
+from vs_seg.data import nifti
 
 
 def test_save_load_roundtrip(tmp_path, rng):
@@ -108,7 +108,7 @@ def test_orientation_roundtrip_fuzz(tmp_path, rng):
     overlay the source voxels exactly (the property that decides whether
     exported segmentations align with the originals — SURVEY 'hard parts')."""
     import itertools
-    from vs_seg_tpu.data import nifti
+    from vs_seg.data import nifti
 
     data = (rng.random((6, 5, 4)) > 0.6).astype(np.float32)
     n = 0

@@ -3,7 +3,7 @@ import time
 
 import numpy as np
 
-from vs_seg_tpu.core.observability import StepTimer, make_image_grid, profile_trace
+from vs_seg.core.observability import StepTimer, make_image_grid, profile_trace
 
 
 def test_step_timer_eta():

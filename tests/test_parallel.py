@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vs_seg_tpu.core.config import Config
-from vs_seg_tpu.models import build_model
-from vs_seg_tpu.parallel.mesh import batch_sharding, make_mesh, shard_batch
-from vs_seg_tpu.train.trainer import Trainer
+from vs_seg.core.config import Config
+from vs_seg.models import build_model
+from vs_seg.parallel.mesh import batch_sharding, make_mesh, shard_batch
+from vs_seg.train.trainer import Trainer
 
 CFG = dict(
     pad_crop_shape=(16, 16, 8),
@@ -82,8 +82,8 @@ def test_graft_dryrun_multichip():
 
 
 def test_sharded_sliding_window_matches_single_device(rng):
-    from vs_seg_tpu.infer.sharded import sliding_window_inference_sharded
-    from vs_seg_tpu.infer.sliding_window import sliding_window_inference
+    from vs_seg.infer.sharded import sliding_window_inference_sharded
+    from vs_seg.infer.sliding_window import sliding_window_inference
 
     def toy(wins):
         a = wins * 2.0 + 1.0
@@ -102,8 +102,8 @@ def test_sharded_sliding_window_matches_single_device(rng):
 
 
 def test_sharded_sliding_window_dfirst(rng):
-    from vs_seg_tpu.infer.sharded import sliding_window_inference_sharded
-    from vs_seg_tpu.infer.sliding_window import sliding_window_inference
+    from vs_seg.infer.sharded import sliding_window_inference_sharded
+    from vs_seg.infer.sliding_window import sliding_window_inference
 
     def toy_hwdc(wins):
         return jnp.concatenate([wins * 3.0, wins - 1.0], axis=-1)
@@ -123,8 +123,8 @@ def test_sharded_program_cache_releases_dropped_predictors(rng):
     """The sharded window-program cache must not pin predictors (and their
     captured params) after the caller drops them (ADVICE r2)."""
     import gc
-    from vs_seg_tpu.infer import sharded
-    from vs_seg_tpu.infer.sharded import sliding_window_inference_sharded
+    from vs_seg.infer import sharded
+    from vs_seg.infer.sharded import sliding_window_inference_sharded
 
     volume = rng.normal(size=(12, 10, 8, 1)).astype(np.float32)
     mesh = make_mesh()
@@ -148,85 +148,24 @@ def test_sharded_program_cache_releases_dropped_predictors(rng):
     assert len(sharded._PROGRAMS) == before
 
 
-def test_sharded_inference_composes_with_fused_blocks(rng):
-    """Window-sharded inference (shard_map + psum) with the mega-kernel
-    gates on must equal the unsharded, unfused engine — Pallas calls inside
-    shard_map are a real compositional risk worth pinning."""
-    from vs_seg_tpu.infer.engine import make_predictor
-    from vs_seg_tpu.infer.sharded import sliding_window_inference_sharded
-    from vs_seg_tpu.infer.sliding_window import sliding_window_inference
-    from vs_seg_tpu.models import UNet2d5_spvPA
-    from vs_seg_tpu.ops import pallas_l2block
-    from vs_seg_tpu.ops import pallas_rublock
-    from vs_seg_tpu.ops.experimental import pallas_block2d
+def test_train_step_compiles_once_on_a_one_device_mesh(rng):
+    """init_state places the state with the sharding train_step returns, so
+    the second step reuses the first step's executable (before, a mesh-
+    sharded batch made the second step compile the whole step again)."""
+    from vs_seg.train.trainer import to_device_batch, wrap_rng_data
+    cfg = Config(**CFG)
+    trainer = Trainer(cfg, build_model(cfg),
+                      mesh=make_mesh(devices=jax.devices()[:1]))
+    state = trainer.init_state()
+    p, bs, opt = state["params"], state["batch_stats"], state["opt_state"]
+    key = wrap_rng_data(state["rng"])
+    batch = {"image": rng.normal(size=(1, 1, 16, 16, 8)).astype(np.float32),
+             "label": (rng.random((1, 1, 16, 16, 8)) > 0.7).astype(
+                 np.float32)}
+    for _ in range(3):
+        image, label = to_device_batch(batch, trainer.mesh)
+        p, bs, opt, key, loss = trainer.train_step(p, bs, opt, key, image,
+                                                   label)
+    assert np.isfinite(float(loss))
+    assert trainer.train_step._cache_size() == 1
 
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x0 = jnp.zeros((1, 8, 32, 32, 1))
-    variables = model.init({"params": jax.random.key(0)}, x0, train=False)
-    params, stats = variables["params"], variables.get("batch_stats", {})
-    predictor = make_predictor(model, params, stats, dtype=jnp.float32)
-
-    volume = rng.normal(size=(40, 36, 10, 1)).astype(np.float32)
-    roi = (32, 32, 8)
-    ref = sliding_window_inference(volume, roi, predictor, sw_batch_size=1,
-                                   predictor_layout="dfirst")
-    mesh = make_mesh()
-    mods = (pallas_block2d, pallas_l2block, pallas_rublock)
-    for m in mods:
-        m.FORCE_INTERPRET = True
-    try:
-        out = sliding_window_inference_sharded(
-            volume, roi, predictor, mesh, sw_batch_size=1,
-            predictor_layout="dfirst")
-    finally:
-        for m in mods:
-            m.FORCE_INTERPRET = False
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=2e-4, rtol=2e-4)
-
-
-def test_fused_window_loop_composes_with_fused_blocks(rng):
-    """The production single-dispatch window loop (jit + fori_loop) with
-    the mega-kernel gates on must equal the same loop unfused — pins
-    pallas_call inside lax loop carries."""
-    from vs_seg_tpu.infer.engine import make_predictor
-    from vs_seg_tpu.infer.sliding_window import sliding_window_inference
-    from vs_seg_tpu.models import UNet2d5_spvPA
-    from vs_seg_tpu.ops import pallas_l2block
-    from vs_seg_tpu.ops import pallas_rublock
-    from vs_seg_tpu.ops.experimental import pallas_block2d
-
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    x0 = jnp.zeros((1, 8, 32, 32, 1))
-    variables = model.init({"params": jax.random.key(0)}, x0, train=False)
-    predictor = make_predictor(model, variables["params"],
-                               variables.get("batch_stats", {}),
-                               dtype=jnp.float32)
-
-    volume = rng.normal(size=(40, 36, 10, 1)).astype(np.float32)
-    roi = (32, 32, 8)
-    ref = sliding_window_inference(volume, roi, predictor, sw_batch_size=1,
-                                   predictor_layout="dfirst")
-    mods = (pallas_block2d, pallas_l2block, pallas_rublock)
-    for m in mods:
-        m.FORCE_INTERPRET = True
-    try:
-        from vs_seg_tpu.infer import sliding_window as sw
-        sw._fused_window_loop.clear_cache()
-        out = sliding_window_inference(volume, roi, predictor,
-                                       sw_batch_size=1,
-                                       predictor_layout="dfirst")
-    finally:
-        for m in mods:
-            m.FORCE_INTERPRET = False
-        sw._fused_window_loop.clear_cache()
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=2e-4, rtol=2e-4)

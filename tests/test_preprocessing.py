@@ -7,8 +7,8 @@ import struct
 import numpy as np
 import pytest
 
-from vs_seg_tpu.preprocessing import convert
-from vs_seg_tpu.preprocessing.dicom import read_dicom, pixel_array
+from vs_seg.preprocessing import convert
+from vs_seg.preprocessing.dicom import read_dicom, pixel_array
 
 
 def _el(group, elem, vr, payload: bytes) -> bytes:
@@ -148,7 +148,7 @@ def test_convert_case_with_rtstruct(dicom_case, tmp_path):
     case, vol = dicom_case
     out = convert.convert_case(str(case), str(tmp_path / "out"), dataset="T1")
     assert set(out) == {"image", "label"}
-    from vs_seg_tpu.data import nifti
+    from vs_seg.data import nifti
     seg = nifti.load(out["label"], dtype=None)
     assert seg.data.shape == (16, 16, 4)
     # circle radius 3 on slice 1 -> ~pi*9 = 28 voxels, centered at (8, 8)
@@ -203,7 +203,7 @@ def _make_case_pair(root, rng, case=1):
 def test_build_bids_dataset(tmp_path, rng):
     """Generated tree must match the structure of the reference's shipped
     VS-SEG-BIDS-nonifti sample (VERDICT r2 task 6)."""
-    from vs_seg_tpu.preprocessing.bids import build_bids_dataset
+    from vs_seg.preprocessing.bids import build_bids_dataset
     import json as _json
     _make_case_pair(tmp_path / "cases", rng, case=1)
     out = str(tmp_path / "bids")
@@ -251,7 +251,7 @@ def test_build_bids_dataset(tmp_path, rng):
     assert mj["Manual"] is True
     assert mj["SpatialReference"] == "sub-001/anat/sub-001_T1w.nii.gz"
     # identity tfm + same grid -> registered image equals the raw image
-    from vs_seg_tpu.data import nifti
+    from vs_seg.data import nifti
     raw = nifti.load(os.path.join(out, "sub-001", "anat",
                                   "sub-001_T1w.nii.gz"))
     reg = nifti.load(os.path.join(
@@ -425,9 +425,9 @@ def test_rasterize_axis_aligned_unchanged(rng):
 
 
 def test_preprocessing_cli_convert_no_registration(tmp_path, rng):
-    """`python -m vs_seg_tpu.preprocessing convert` produces the reference
+    """`python -m vs_seg.preprocessing convert` produces the reference
     output layout (data_conversion.py:486-526, no-registration branch)."""
-    from vs_seg_tpu.preprocessing.__main__ import main
+    from vs_seg.preprocessing.__main__ import main
 
     cases = tmp_path / "cases"
     _make_case_pair(cases, rng, case=7)
@@ -444,9 +444,9 @@ def test_preprocessing_cli_convert_registered(tmp_path, rng):
     inv_T1_LPS_to_T2_LPS.tfm; the T2 contours rasterized on the T2 grid
     (data_conversion.py:445-526). With the fixture's identity transform
     and identical grids, the resampled T1 equals the native T1."""
-    from vs_seg_tpu.data import nifti
-    from vs_seg_tpu.preprocessing.__main__ import main
-    from vs_seg_tpu.preprocessing.convert import load_series
+    from vs_seg.data import nifti
+    from vs_seg.preprocessing.__main__ import main
+    from vs_seg.preprocessing.convert import load_series
 
     cases = tmp_path / "cases"
     _make_case_pair(cases, rng, case=3)
@@ -465,7 +465,7 @@ def test_preprocessing_cli_convert_registered(tmp_path, rng):
 
 
 def test_preprocessing_cli_bids_and_restructure_smoke(tmp_path, rng):
-    from vs_seg_tpu.preprocessing.__main__ import main
+    from vs_seg.preprocessing.__main__ import main
 
     cases = tmp_path / "cases"
     _make_case_pair(cases, rng, case=2)
@@ -475,9 +475,9 @@ def test_preprocessing_cli_bids_and_restructure_smoke(tmp_path, rng):
 
 
 def test_preprocessing_cli_restructure(tmp_path, rng):
-    """`python -m vs_seg_tpu.preprocessing restructure` end to end on a
+    """`python -m vs_seg.preprocessing restructure` end to end on a
     full RT bundle download."""
-    from vs_seg_tpu.preprocessing.__main__ import main
+    from vs_seg.preprocessing.__main__ import main
 
     raw = tmp_path / "raw"
     raw.mkdir()

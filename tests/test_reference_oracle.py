@@ -1,14 +1,12 @@
 """Golden parity against the REFERENCE'S OWN source.
 
-Imports /root/reference/params/networks/nets/unet2d5_spvPA.py and
-params/losses/dice_spvPA.py under the MONAI-0.4 shim (tests/monai_shim.py) and
+Imports params/networks/nets/unet2d5_spvPA.py and params/losses/dice_spvPA.py
+of a reference checkout (the `reference_src` fixture; skipped without one) under the MONAI-0.4 shim (tests/monai_shim.py) and
 pins our JAX model + converter + loss against them. This closes the
 common-mode-risk gap of validating only against the hand-written replica
 (tests/torch_replica.py): if both the replica and the JAX port misread the
 reference recursion (unet2d5_spvPA.py:56-93), these tests still fail.
 """
-
-import os
 
 import jax
 
@@ -17,24 +15,22 @@ import numpy as np
 import pytest
 import torch
 
-from tests.monai_shim import install_shim
 from tests.test_model import SMALL
 from tests.torch_replica import TorchUNet2d5_spvPA
-from vs_seg_tpu.compat.torch_import import import_unet2d5_spvpa
-from vs_seg_tpu.losses.dice import dice_spvpa_loss
-from vs_seg_tpu.models import UNet2d5_spvPA
+from vs_seg.compat.torch_import import import_unet2d5_spvpa
+from vs_seg.losses.dice import dice_spvpa_loss
+from vs_seg.models import UNet2d5_spvPA
 
-REFERENCE = "/root/reference"
-pytestmark = pytest.mark.skipif(
-    not os.path.isdir(os.path.join(REFERENCE, "params")),
-    reason="reference source tree not available")
+RefDiceSpvPA = RefUNet2d5_spvPA = None
 
-install_shim(REFERENCE)
 
-from params.losses.dice_spvPA import Dice_spvPA as RefDiceSpvPA  # noqa: E402
-from params.networks.nets.unet2d5_spvPA import (  # noqa: E402
-    UNet2d5_spvPA as RefUNet2d5_spvPA,
-)
+@pytest.fixture(autouse=True, scope="module")
+def _reference_classes(reference_src):
+    global RefDiceSpvPA, RefUNet2d5_spvPA
+    from params.losses.dice_spvPA import Dice_spvPA as RefDiceSpvPA
+    from params.networks.nets.unet2d5_spvPA import (
+        UNet2d5_spvPA as RefUNet2d5_spvPA,
+    )
 
 
 def _build_reference_model(attention=True):

@@ -1,7 +1,7 @@
 import numpy as np
 
-from vs_seg_tpu.data import nifti
-from vs_seg_tpu.preprocessing.registration import read_itk_tfm, resample_to_reference
+from vs_seg.data import nifti
+from vs_seg.preprocessing.registration import read_itk_tfm, resample_to_reference
 
 
 def test_read_itk_tfm(tmp_path):

@@ -2,9 +2,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from vs_seg_tpu.infer.sliding_window import (
+from vs_seg.infer.sliding_window import (
     dense_patch_starts, gaussian_importance_map, sliding_window_inference,
 )
+from vs_seg.reference import numpy_blend as _numpy_sliding_window
 
 
 def test_dense_patch_starts_monai_formula():
@@ -26,34 +27,6 @@ def test_gaussian_importance_map_properties():
     assert (imp > 0).all()
     # separable gaussian: imp[x,c,c] = exp(-0.5((x-8)/2)^2)
     np.testing.assert_allclose(imp[6, 8, 4], np.exp(-0.5 * (2 / 2.0) ** 2), rtol=1e-5)
-
-
-def _numpy_sliding_window(volume, roi, overlap, predictor_np, mode="gaussian"):
-    """Independent numpy transcription of the MONAI 0.4 algorithm."""
-    H, W, D, C = volume.shape
-    pads, crops = [], []
-    for dim, r in zip((H, W, D), roi):
-        diff = max(r - dim, 0)
-        pads.append((diff // 2, diff - diff // 2))
-        crops.append((diff // 2, diff // 2 + dim))
-    vol = np.pad(volume, pads + [(0, 0)])
-    starts = dense_patch_starts(vol.shape[:3], roi, overlap)
-    imp = (gaussian_importance_map(roi) if mode == "gaussian"
-           else np.ones(roi, np.float32))
-    out = None
-    wsum = np.zeros((*vol.shape[:3], 1), np.float32)
-    for s in starts:
-        win = vol[s[0]:s[0] + roi[0], s[1]:s[1] + roi[1], s[2]:s[2] + roi[2]]
-        pred = predictor_np(win[None])[0]
-        if out is None:
-            out = np.zeros((*vol.shape[:3], pred.shape[-1]), np.float32)
-        out[s[0]:s[0] + roi[0], s[1]:s[1] + roi[1], s[2]:s[2] + roi[2]] += \
-            pred * imp[..., None]
-        wsum[s[0]:s[0] + roi[0], s[1]:s[1] + roi[1], s[2]:s[2] + roi[2]] += \
-            imp[..., None]
-    blended = out / wsum
-    (h0, h1), (w0, w1), (d0, d1) = crops
-    return blended[h0:h1, w0:w1, d0:d1]
 
 
 def _toy_predictor(wins):
@@ -133,7 +106,7 @@ def test_bucketing_bounds_compilations(rng):
     """4+ distinct whole-volume shapes with a bucket policy must compile O(1)
     programs (the reference test protocol feeds heterogeneous whole volumes,
     params/VSparams.py:552-574) and keep exact numerics vs unbucketed."""
-    from vs_seg_tpu.infer import sliding_window as sw
+    from vs_seg.infer import sliding_window as sw
 
     traces = []
 
@@ -178,7 +151,7 @@ def test_fused_matches_unfused(rng):
 def test_quantized_pad_margin_is_zero(rng):
     """Pad-to-roi margins must dequantize to ~0.0 even when the volume's own
     range excludes 0 (regression: uint8 pads decoded to the volume MINIMUM)."""
-    from vs_seg_tpu.infer.sliding_window import stage_volume
+    from vs_seg.infer.sliding_window import stage_volume
     volume = (rng.random((5, 6, 4, 1)) + 5.0).astype(np.float32)  # all >= 5
     roi = (8, 8, 8)
     ref = sliding_window_inference(volume, roi, _toy_predictor,

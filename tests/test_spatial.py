@@ -8,14 +8,14 @@ import numpy as np
 import pytest
 
 from tests.test_model import SMALL
-from vs_seg_tpu.models import UNet2d5_spvPA
-from vs_seg_tpu.ops.halo import halo_conv3d
-from vs_seg_tpu.parallel.mesh import make_mesh
+from vs_seg.models import UNet2d5_spvPA
+from vs_seg.ops.halo import halo_conv3d
+from vs_seg.parallel.mesh import make_mesh
 
 
 @pytest.mark.parametrize("kernel", [(3, 3, 1), (3, 3, 3), (1, 3, 3)])
 def test_halo_conv3d_matches_dense(rng, kernel):
-    from vs_seg_tpu.nn.layers import conv3d, same_padding
+    from vs_seg.nn.layers import conv3d, same_padding
     mesh = make_mesh()
     n = mesh.devices.size
     kh, kw, kd = kernel
@@ -31,8 +31,8 @@ def test_halo_conv3d_matches_dense(rng, kernel):
 
 def test_spatial_predictor_matches_single_device(rng):
     """GSPMD spatially-sharded forward (H over 8 devices) == dense forward."""
-    from vs_seg_tpu.infer.engine import make_predictor
-    from vs_seg_tpu.infer.spatial import make_spatial_predictor
+    from vs_seg.infer.engine import make_predictor
+    from vs_seg.infer.spatial import make_spatial_predictor
 
     mesh = make_mesh()
     model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=0.1,
@@ -55,9 +55,9 @@ def test_spatial_predictor_matches_single_device(rng):
 def test_spatial_predictor_in_sliding_window(rng):
     """End-to-end: sliding-window inference with the spatially sharded
     predictor equals the unsharded engine output."""
-    from vs_seg_tpu.infer.engine import make_predictor
-    from vs_seg_tpu.infer.sliding_window import sliding_window_inference
-    from vs_seg_tpu.infer.spatial import make_spatial_predictor
+    from vs_seg.infer.engine import make_predictor
+    from vs_seg.infer.sliding_window import sliding_window_inference
+    from vs_seg.infer.spatial import make_spatial_predictor
 
     mesh = make_mesh()
     model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=0.1,
@@ -91,7 +91,7 @@ def test_spatial_transpose_conv_matches_dense(rng, kh, sh):
     from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vs_seg_tpu.nn.layers import ConvTranspose3d, spatial_sharding
+    from vs_seg.nn.layers import ConvTranspose3d, spatial_sharding
 
     mesh = make_mesh()
     n = mesh.devices.size
@@ -112,69 +112,3 @@ def test_spatial_transpose_conv_matches_dense(rng, kh, sh):
     assert out.shape == ref.shape
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                atol=1e-5, rtol=1e-5)
-
-
-def test_2d_fusion_gates_disabled_under_spatial_context():
-    """The kd=1 2D block kernels are not halo-aware and must stay off inside
-    the spatial-sharding context even when force-enabled. (The (3,3,3)
-    l2block/rublock kernels ARE allowed there since r4 — their dispatchers
-    exchange halo rows; exactness pinned below.)"""
-    from vs_seg_tpu.nn.layers import spatial_sharding
-    from vs_seg_tpu.ops.experimental import pallas_block2d
-
-    pallas_block2d.FORCE_INTERPRET = True
-    try:
-        with spatial_sharding("data", 8):
-            assert not pallas_block2d.ru_fusion_enabled()
-            assert not pallas_block2d.l2_fusion_enabled()
-        assert pallas_block2d.ru_fusion_enabled()  # restored outside
-    finally:
-        pallas_block2d.FORCE_INTERPRET = False
-
-
-def test_spatial_fused_blocks_match_dense(rng, monkeypatch):
-    """Halo-aware fused mega-kernels under spatial sharding (VERDICT r3
-    task 4): the spatially sharded predictor with the (3,3,3) rublock +
-    l2block kernels force-enabled (interpret mode) must equal the dense
-    unfused forward exactly — and both kernels must actually engage."""
-    from vs_seg_tpu.infer.engine import make_predictor
-    from vs_seg_tpu.infer.spatial import make_spatial_predictor
-    from vs_seg_tpu.ops import pallas_l2block, pallas_rublock
-
-    mesh = make_mesh()
-    cfg = dict(channels=(8, 16, 32), strides=((2, 2, 1), (2, 2, 2)),
-               kernel_sizes=((3, 3, 1), (3, 3, 3), (3, 3, 3)),
-               sample_kernel_sizes=((3, 3, 1), (3, 3, 3)))
-    model = UNet2d5_spvPA(out_channels=2, num_res_units=2, dropout=None,
-                          attention_module=True, dtype=jnp.float32, **cfg)
-    # H=128 over 8 shards -> local 16 at L0, local 8 at the fusable L1 sites
-    x0 = jnp.zeros((1, 8, 128, 32, 1))
-    variables = model.init({"params": jax.random.key(0)}, x0, train=False)
-    variables = jax.tree.map(
-        lambda v: v + 0.1 if v.ndim == 1 else v, variables)
-    params, stats = variables["params"], variables.get("batch_stats", {})
-
-    wins = jnp.asarray(rng.normal(size=(1, 8, 128, 32, 1)), jnp.float32)
-    ref = make_predictor(model, params, stats, dtype=jnp.float32)(wins)
-
-    calls = {"ru": 0, "l2": 0}
-    real_ru, real_l2 = pallas_rublock.ru_block, pallas_l2block.l2_block
-
-    def count_ru(*a, **k):
-        calls["ru"] += 1
-        return real_ru(*a, **k)
-
-    def count_l2(*a, **k):
-        calls["l2"] += 1
-        return real_l2(*a, **k)
-
-    monkeypatch.setattr(pallas_rublock, "ru_block", count_ru)
-    monkeypatch.setattr(pallas_l2block, "l2_block", count_l2)
-    monkeypatch.setattr(pallas_rublock, "FORCE_INTERPRET", True)
-    monkeypatch.setattr(pallas_l2block, "FORCE_INTERPRET", True)
-    out = make_spatial_predictor(model, params, stats, mesh,
-                                 dtype=jnp.float32)(wins)
-    assert calls["ru"] > 0, "spatial rublock dispatch never engaged"
-    assert calls["l2"] > 0, "spatial l2block dispatch never engaged"
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=2e-4, rtol=2e-4)

@@ -1,8 +1,8 @@
 import numpy as np
 
-from vs_seg_tpu.data import nifti
-from vs_seg_tpu.data.dataset import CacheDataset, DataLoader, load_split_csv
-from vs_seg_tpu.data.transforms import (
+from vs_seg.data import nifti
+from vs_seg.data.dataset import CacheDataset, DataLoader, load_split_csv
+from vs_seg.data.transforms import (
     AddChannel, Compose, LoadNifti, NormalizeIntensity, Orientation,
     RandFlip, RandSpatialCrop, SpatialPad, get_transforms,
 )
@@ -82,7 +82,7 @@ def test_loader_batching_and_shuffle(synthetic_root):
 
 
 def test_spacing_transform(rng):
-    from vs_seg_tpu.data.transforms import Spacing
+    from vs_seg.data.transforms import Spacing
     arr = rng.normal(size=(1, 20, 20, 10)).astype(np.float32)
     lbl = (rng.random((1, 20, 20, 10)) > 0.5).astype(np.float32)
     aff = np.diag([0.5, 0.5, 2.0, 1.0])

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vs_seg_tpu.ops.experimental.widthpack import conv2d_widthpacked
+from vs_seg.ops.experimental.widthpack import conv2d_widthpacked
 
 
 def _ref_conv(x, w):
